@@ -1,6 +1,7 @@
 #!/bin/sh
-# Build the native loader shared library next to this script.
+# Build the native loader library by hand; saccot/io/native.py runs the same
+# build at first use. Output: build/native/libsaccot_native.so at the
+# repository root.
 set -e
-cd "$(dirname "$0")"
-g++ -O3 -march=native -shared -fPIC -std=c++17 loader.cpp prefetch.cpp -o libsaccot_native.so -lpthread
-echo "built $(pwd)/libsaccot_native.so"
+cd "$(dirname "$0")/.."
+python -c "from saccot.io.native import build; p = build(); print('built', p); raise SystemExit(p is None)"

@@ -1,12 +1,12 @@
-// Native data-loader fast path for saccot_tpu.
+// Native data-loader fast path for saccot.
 //
 // The reference's I/O layer is C++ (PCL readers; SURVEY.md section 2.1
-// "Cloud I/O"); this is the TPU framework's native equivalent for the
+// "Cloud I/O"); this is the framework's native equivalent for the
 // formats where parsing cost actually matters at sweep scale: KITTI
 // velodyne .bin scans (~100k points / 1.6 MB each, thousands per
 // sequence), binary PLY, and the host-side voxel-grid downsample that
 // feeds fixed-size buckets to the device. Exposed as a plain C ABI and
-// loaded from Python with ctypes (saccot_tpu/io/native.py); every entry
+// loaded from Python with ctypes (saccot/io/native.py); every entry
 // point has a NumPy fallback so the framework runs without the .so.
 //
 // Build: native/build.sh (g++ -O3 -shared).

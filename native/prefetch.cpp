@@ -1,15 +1,15 @@
-// Threaded prefetching point-cloud reader for saccot_tpu.
+// Threaded prefetching point-cloud reader for saccot.
 //
 // The reference's driver reads each scan synchronously on the main thread
-// before registering it (SURVEY.md section 2.1 "Driver"/"Cloud I/O"). On
-// the TPU framework the device consumes pairs orders of magnitude faster
-// than a serial reader can parse them, so the sweep runner needs host I/O
+// before registering it (SURVEY.md section 2.1, main loop and cloud I/O). Here
+// the device can consume pairs faster than a serial reader parses them,
+// so the sweep runner needs host I/O
 // running AHEAD of the device: this module is a small native pipeline —
 // a worker pool parses scans (KITTI .bin / binary PLY via loader.cpp)
 // into an ordered, bounded results window while the Python side feeds the
 // accelerator, so disk/parse latency overlaps device compute.
 //
-// C ABI (ctypes from saccot_tpu/io/native.py):
+// C ABI (ctypes from saccot/io/native.py):
 //   saccot_prefetch_create(paths, n, max_pts, fmt, threads, window)
 //   saccot_prefetch_next(handle, out, max_pts) -> count | -1 err | -2 done
 //   saccot_prefetch_destroy(handle)

@@ -8,14 +8,15 @@ at the fixed seeds, not a coin flip.
 """
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
-from saccot_tpu.engine.baselines import (
+from saccot.engine.baselines import (
     edge_guided_register_pair, ransac_register_pair, sampler_ablation,
 )
-from saccot_tpu.io.synthetic import correspondence_problem
-from saccot_tpu.utils import se3np
-from saccot_tpu.utils.params import SacCotParams
+from saccot.io.synthetic import correspondence_problem
+from saccot.utils import se3np
+from saccot.utils.params import SacCotParams
 
 PARAMS = SacCotParams(
     compat_tau=0.03, min_separation=0.05, inlier_tau=0.03,
@@ -89,7 +90,7 @@ def test_run_sampler_ablation_sweep():
     gap must be visible at the hardest rate."""
     import dataclasses
 
-    from saccot_tpu.evaluation.ablation import format_table, run_sampler_ablation
+    from saccot.evaluation.ablation import format_table, run_sampler_ablation
 
     params = dataclasses.replace(
         PARAMS, num_anchors=96, neighbors_per_anchor=10, max_hypotheses=128,
@@ -108,10 +109,10 @@ def test_run_sampler_ablation_sweep():
 
 
 def test_cli_ablate_smoke(capsys):
-    """`saccot_tpu ablate` prints one JSON line with the recall table."""
+    """`saccot ablate` prints one JSON line with the recall table."""
     import json
 
-    from saccot_tpu.cli.main import main
+    from saccot.cli.main import main
 
     rc = main([
         "ablate", "--cpu", "--pairs", "4", "--corr", "256",
@@ -126,28 +127,41 @@ def test_cli_ablate_smoke(capsys):
 
 def test_roofline_model_accounting():
     """Analytic roofline bounds (evaluation/roofline.py): binding resource
-    and fraction-of-peak arithmetic."""
-    from saccot_tpu.evaluation.roofline import (
-        ChipPeaks, compat_degrees_model, estimator_flop_count,
-        roofline_fraction, scoring_model,
+    and fraction-of-peak arithmetic against the H100 entry."""
+    from saccot.evaluation.roofline import (
+        compat_degrees_model, estimator_flop_count, peaks_for,
+        roofline_fraction, scoring_model, stage_bound_seconds,
     )
 
-    m = compat_degrees_model(n=1000, batch=32, mxu=False)
+    m = compat_degrees_model(n=1000, batch=32)
     assert m["flops"] == 25.0 * 32 * 1000 * 1000
     assert m["bytes"] == 32 * 7000 * 4.0
-    # The r5 MXU-Gram default: smaller VPU tail + an MXU term.
-    mm = compat_degrees_model(n=1000, batch=32)
-    assert mm["flops"] < m["flops"]
-    assert mm["mxu_flops"] > 0
     # O(N^2) compute vs O(N) traffic: compute-bound by orders of magnitude.
-    peaks = ChipPeaks()
+    peaks = peaks_for("NVIDIA H100 80GB HBM3")
     r = roofline_fraction(m, measured_seconds=1e-3, peaks=peaks)
     assert r["binding"] == "compute"
-    expect = m["flops"] / peaks.vpu_f32_flops / 1e-3
+    expect = m["flops"] / peaks.f32_flops / 1e-3
     assert abs(r["fraction_of_peak"] - expect) < 1e-9
+    assert stage_bound_seconds(m, peaks) == m["flops"] / peaks.f32_flops
 
     s = scoring_model(n=1000, k=1024, batch=1)
     assert s["flops"] == 28.0 * 1024 * 1000
 
     total = estimator_flop_count(1000, PARAMS)
     assert total > m["flops"] / 32  # degrees are included
+
+
+def test_peak_table_h100_entry():
+    from saccot.evaluation.roofline import peaks_for
+
+    p = peaks_for("NVIDIA H100 80GB HBM3")
+    assert (p.f32_flops, p.tf32_flops, p.bf16_flops) == (67e12, 495e12, 989e12)
+    assert p.hbm_bytes_per_s == 3.35e12
+    assert "H100" in p.source
+
+
+def test_peak_table_unknown_kind_raises():
+    from saccot.evaluation.roofline import peaks_for
+
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks_for("cpu")

@@ -1,6 +1,6 @@
 """External-protocol (real-3DMatch-style) driver test: per-fragment .npz
 descriptors + gt.log on disk -> RE/TE recall through the CLI path
-(VERDICT r2 missing #2 / next #5; BASELINE.json config 3)."""
+(BASELINE.json config 3)."""
 
 import json
 import os
@@ -8,9 +8,9 @@ import os
 import numpy as np
 import pytest
 
-from saccot_tpu.io.external import save_descriptors_npz
-from saccot_tpu.utils import se3np
-from saccot_tpu.utils.params import SacCotParams
+from saccot.io.external import save_descriptors_npz
+from saccot.utils import se3np
+from saccot.utils.params import SacCotParams
 
 
 def _write_scene(tmp_path, n_frag=4, n_world=600, n_keep=320, dim=32, seed=5):
@@ -56,7 +56,7 @@ def scene(tmp_path_factory):
 
 
 def test_run_external_recall(scene):
-    from saccot_tpu.cli.external import run_external
+    from saccot.cli.external import run_external
 
     frag_dir, gt_path, pairs = scene
     params = SacCotParams(
@@ -74,10 +74,10 @@ def test_run_external_recall(scene):
 
 
 def test_external_cli_entrypoint(scene, tmp_path, capsys, monkeypatch):
-    """`python -m saccot_tpu.cli.main external --dir ... --gt-log ...` prints
+    """`python -m saccot.cli.main external --dir ... --gt-log ...` prints
     one JSON metrics line and logs per-pair JSONL records."""
-    from saccot_tpu.cli import external as ext_mod
-    from saccot_tpu.cli.main import main
+    from saccot.cli import external as ext_mod
+    from saccot.cli.main import main
 
     frag_dir, gt_path, pairs = scene
     # The CLI's default scene-scale params use max_hypotheses=2048 — slow on
@@ -114,9 +114,9 @@ def test_external_out_log_roundtrip(scene, tmp_path):
     """--out-log writes a standard 3DMatch-style .log of the estimated
     transforms that load_gt_log round-trips, with each entry matching the
     corresponding gt transform (the run has recall 1.0)."""
-    from saccot_tpu.cli.external import run_external
-    from saccot_tpu.io.loaders import load_gt_log
-    from saccot_tpu.utils import se3np as _se3
+    from saccot.cli.external import run_external
+    from saccot.io.loaders import load_gt_log
+    from saccot.utils import se3np as _se3
 
     frag_dir, gt_path, pairs = scene
     params = SacCotParams(

@@ -14,15 +14,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from saccot_tpu.engine import compat as jcompat
-from saccot_tpu.engine import score as jscore
-from saccot_tpu.engine import triangles as jtri
-from saccot_tpu.engine.sac_cot import register_pair, register_batch
-from saccot_tpu.engine.svd3 import umeyama as jumeyama
-from saccot_tpu.io.synthetic import correspondence_problem
-from saccot_tpu.oracle import saccot as oracle
-from saccot_tpu.utils import se3np
-from saccot_tpu.utils.params import SacCotParams
+from saccot.engine import compat as jcompat
+from saccot.engine import score as jscore
+from saccot.engine import triangles as jtri
+from saccot.engine.sac_cot import register_pair, register_batch
+from saccot.engine.svd3 import umeyama as jumeyama
+from saccot.io.synthetic import correspondence_problem
+from saccot.oracle import saccot as oracle
+from saccot.utils import se3np
+from saccot.utils.params import SacCotParams
 
 # Exhaustive regime for a 96-correspondence problem.
 N = 96
@@ -174,8 +174,8 @@ def test_masked_anchors_produce_no_valid_triangles():
     """Regression: when valid correspondences < num_anchors, top_k must fill
     the anchor budget with masked nodes, and none of their triangles may be
     marked valid (code-review finding: missing mask_rows)."""
-    from saccot_tpu.engine.compat import degrees
-    from saccot_tpu.engine.triangles import triangle_pool_from_points
+    from saccot.engine.compat import degrees
+    from saccot.engine.triangles import triangle_pool_from_points
 
     prob = correspondence_problem(seed=77, n=64, outlier_ratio=0.2)
     P, Q = jnp.asarray(prob["P"]), jnp.asarray(prob["Q"])
@@ -191,7 +191,7 @@ def test_masked_anchors_produce_no_valid_triangles():
 
 
 def test_num_candidate_triangles_matches_pool_template():
-    from saccot_tpu.utils.params import num_candidate_triangles
+    from saccot.utils.params import num_candidate_triangles
 
     p = SacCotParams(num_anchors=7, neighbors_per_anchor=5)
     b1, b2 = np.triu_indices(5, k=1)
@@ -224,7 +224,7 @@ def test_triangle_pool_dedup_key_packings_agree(prob, monkeypatch):
 def test_fast_config_recall_neutral(outlier):
     """bench.py's fast config (dedup off + approx top-k) must match the
     exact config's recall at the hard ablation operating points, not just
-    the 80%-outlier headline point (ADVICE r2)."""
+    the 80%-outlier headline point."""
     N2, B = 512, 6
     base = SacCotParams(
         compat_tau=0.03,
@@ -247,9 +247,7 @@ def test_fast_config_recall_neutral(outlier):
     Q_all = jnp.stack([jnp.asarray(p["Q"]) for p in probs])
 
     def recall(params):
-        # pallas pool impl so per_anchor_candidates (a pallas-only fast
-        # path) is actually exercised; interpret mode off-TPU.
-        res = register_batch(P_all, Q_all, params, pool_impl="pallas")
+        res = register_batch(P_all, Q_all, params)
         T_all = np.asarray(res.T, np.float64)
         ok = 0
         for b, p in enumerate(probs):

@@ -7,18 +7,18 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial import cKDTree
 
-from saccot_tpu.features.neighbors import knn, neighbor_validity
-from saccot_tpu.features.normals import estimate_normals
-from saccot_tpu.features.resolution import mesh_resolution
-from saccot_tpu.features.voxel import voxel_downsample
-from saccot_tpu.features.iss import iss_keypoints
-from saccot_tpu.features.shot import shot_descriptors
-from saccot_tpu.features.fpfh import fpfh_descriptors
-from saccot_tpu.features.pipeline import PipelineConfig, register_clouds
-from saccot_tpu.io.synthetic import blob_cloud, two_view_pair
-from saccot_tpu.match.topk import match_descriptors
-from saccot_tpu.utils import se3np
-from saccot_tpu.utils.params import SacCotParams
+from saccot.features.neighbors import knn, neighbor_validity
+from saccot.features.normals import estimate_normals
+from saccot.features.resolution import mesh_resolution
+from saccot.features.voxel import voxel_downsample
+from saccot.features.iss import iss_keypoints
+from saccot.features.shot import shot_descriptors
+from saccot.features.fpfh import fpfh_descriptors
+from saccot.features.pipeline import PipelineConfig, register_clouds
+from saccot.io.synthetic import blob_cloud, two_view_pair
+from saccot.match.topk import match_descriptors
+from saccot.utils import se3np
+from saccot.utils.params import SacCotParams
 
 
 def test_knn_matches_scipy(rng):
@@ -140,7 +140,7 @@ def test_pipeline_end_to_end_two_view():
 
 
 def test_harris_keypoints_repeatability():
-    from saccot_tpu.features.harris import harris_keypoints
+    from saccot.features.harris import harris_keypoints
 
     cloud = blob_cloud(np.random.default_rng(13), 3000).astype(np.float32)
     pr = float(mesh_resolution(jnp.asarray(cloud)))
@@ -161,11 +161,11 @@ def test_harris_keypoints_repeatability():
 
 
 def test_external_descriptor_roundtrip(tmp_path):
-    from saccot_tpu.io.external import (
+    from saccot.io.external import (
         correspondences_from_descriptors, load_descriptors_npz, save_descriptors_npz,
     )
-    from saccot_tpu.engine import register_pair
-    from saccot_tpu.io.synthetic import correspondence_problem
+    from saccot.engine import register_pair
+    from saccot.io.synthetic import correspondence_problem
 
     # Fabricate "learned" descriptors: GT-corresponding points get similar
     # random vectors, outliers get independent ones.
@@ -206,7 +206,7 @@ def test_pipeline_harris_variant():
 
 
 def test_pipeline_batch_vmap():
-    from saccot_tpu.features.pipeline import register_clouds_batch
+    from saccot.features.pipeline import register_clouds_batch
     import jax
 
     pairs = [two_view_pair(seed=30 + s, n_points=2000, overlap=0.85, noise=0.002)
@@ -228,7 +228,7 @@ def test_pipeline_batch_vmap():
 
 
 def test_mutual_filter_inf_contract(rng):
-    from saccot_tpu.match.topk import mutual_filter
+    from saccot.match.topk import mutual_filter
 
     d1 = rng.normal(size=(20, 8)).astype(np.float32)
     d2 = rng.normal(size=(20, 8)).astype(np.float32)
@@ -253,7 +253,7 @@ def test_match_single_target_row(rng):
 def test_pipeline_with_icp_polish():
     """cfg.icp runs a trimmed dense polish after the estimator; the refined
     transform must be at least as accurate as the coarse one."""
-    from saccot_tpu.engine.icp import IcpParams
+    from saccot.engine.icp import IcpParams
 
     pair = two_view_pair(seed=9, n_points=4096, overlap=0.8, noise=0.002)
     base = PipelineConfig(
@@ -296,7 +296,7 @@ def test_pipeline_with_icp_polish():
 def test_eig3_matches_eigvalsh(rng):
     """Closed-form 3x3 symmetric eigenvalues/vectors vs LAPACK on random
     covariance-like inputs + degenerate cases (features/eig3.py)."""
-    from saccot_tpu.features.eig3 import eigvals3_sym, smallest_eigvec3_sym
+    from saccot.features.eig3 import eigvals3_sym, smallest_eigvec3_sym
 
     A = rng.normal(size=(256, 5, 3)).astype(np.float32)
     C = np.einsum("nki,nkj->nij", A, A) / 5.0  # SPD-ish covariances
@@ -348,8 +348,8 @@ def test_soft_binning_mass_conservation():
     """Soft binning redistributes each neighbor's unit weight — the
     UN-normalized histogram mass must equal the valid-neighbor count
     exactly (wrap + clamp conventions preserve total mass)."""
-    from saccot_tpu.features.shot import SHOT_DIM, local_reference_frames  # noqa
-    import saccot_tpu.features.shot as shot_mod
+    from saccot.features.shot import SHOT_DIM, local_reference_frames  # noqa
+    import saccot.features.shot as shot_mod
 
     cloud = blob_cloud(np.random.default_rng(2), 1200).astype(np.float32)
     pts = jnp.asarray(cloud)

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial import cKDTree
 
-from saccot_tpu.engine.icp import IcpParams, icp, icp_batch, nearest_neighbors
-from saccot_tpu.features.normals import estimate_normals
-from saccot_tpu.io.synthetic import blob_cloud
-from saccot_tpu.utils import se3np
+from saccot.engine.icp import IcpParams, icp, icp_batch, nearest_neighbors
+from saccot.features.normals import estimate_normals
+from saccot.io.synthetic import blob_cloud
+from saccot.utils import se3np
 
 
 def _cloud_pair(seed, n=800, noise=0.002, angle=0.15, trans=0.05):

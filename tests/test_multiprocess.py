@@ -1,4 +1,4 @@
-"""Real multi-process process-group validation (VERDICT r2 next #6).
+"""Real multi-process process-group validation.
 
 Launches scripts/multiprocess_dryrun.py: 2 OS processes x 4 faked CPU
 devices join a jax.distributed coordinator on localhost and run the DP x SP
@@ -32,7 +32,7 @@ def test_multiprocess_dryrun():
 
 def test_multiprocess_fault_injection():
     """Kill-one-process fault injection (SURVEY.md section 5 failure
-    detection; VERDICT r3 next #4): a 2-process checkpointed sweep loses
+    detection): a 2-process checkpointed sweep loses
     process 1 to SIGKILL mid-sweep, the group is restarted with the same
     checkpoint dir, and the resumed run's results are identical to an
     uninterrupted run — restart-from-shard-boundary is the elasticity
@@ -53,7 +53,7 @@ def test_multiprocess_fault_injection():
 
 
 def test_multiprocess_four_proc_ring():
-    """4 OS processes x 2 faked devices (VERDICT r4 next #7): the corr mesh
+    """4 OS processes x 2 faked devices: the corr mesh
     axis spans process boundaries and the estimator runs the ppermute RING
     compat path across them, parity-checked in-worker against an unsharded
     reference."""

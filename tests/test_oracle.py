@@ -9,10 +9,10 @@ satisfy basic invariants.
 import numpy as np
 import pytest
 
-from saccot_tpu.io.synthetic import correspondence_problem
-from saccot_tpu.oracle import saccot as oracle
-from saccot_tpu.utils import se3np
-from saccot_tpu.utils.params import SacCotParams
+from saccot.io.synthetic import correspondence_problem
+from saccot.oracle import saccot as oracle
+from saccot.utils import se3np
+from saccot.utils.params import SacCotParams
 
 PARAMS = SacCotParams(
     compat_tau=0.03, min_separation=0.05, inlier_tau=0.03, max_hypotheses=256

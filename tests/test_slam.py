@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from saccot_tpu.slam import se3
-from saccot_tpu.slam.posegraph import (
+from saccot.slam import se3
+from saccot.slam.posegraph import (
     PoseGraph, optimize_pose_graph, odometry_chain_init, graph_cost,
 )
-from saccot_tpu.slam.ba import BAProblem, bundle_adjust, ba_cost
-from saccot_tpu.utils import se3np
+from saccot.slam.ba import BAProblem, bundle_adjust, ba_cost
+from saccot.utils import se3np
 
 
 def rand_pose(rng, angle=0.8, trans=1.0):
@@ -162,7 +162,7 @@ def test_ba_perfect_obs_zero_cost():
 
 
 def test_ba_sharded_matches_single_device(eight_devices):
-    from saccot_tpu.dist.mesh import make_mesh
+    from saccot.dist.mesh import make_mesh
 
     prob, gt_poses, _ = _make_ba_problem(seed=5, L=64, M=6)
     ref = bundle_adjust(prob, iters=6)
@@ -176,7 +176,7 @@ def test_ba_sharded_matches_single_device(eight_devices):
         )
         return bundle_adjust(local_prob, iters=6, axis_name="corr")
 
-    from saccot_tpu.slam.ba import BAResult
+    from saccot.slam.ba import BAResult
 
     fn = jax.shard_map(
         local, mesh=mesh,
@@ -199,10 +199,10 @@ def test_ba_sharded_matches_single_device(eight_devices):
 
 # ------------------------------------------------------- sequence front end
 def test_sequence_slam_end_to_end():
-    from saccot_tpu.io.synthetic import slam_sequence
-    from saccot_tpu.slam.frontend import run_sequence
-    from saccot_tpu.evaluation.metrics import ate
-    from saccot_tpu.utils.params import SacCotParams
+    from saccot.io.synthetic import slam_sequence
+    from saccot.slam.frontend import run_sequence
+    from saccot.evaluation.metrics import ate
+    from saccot.utils.params import SacCotParams
 
     seq = slam_sequence(seed=11, n_scans=6, n_corr=192, outlier_ratio=0.4,
                         noise=0.003, loop_every=3)
@@ -225,9 +225,8 @@ def test_sequence_slam_end_to_end():
 def test_track_association_merges_covisible_points():
     """correspondences_to_ba (tracks mode): a point co-visible from several
     scans, appearing in multiple pairwise registrations, must collapse into
-    ONE landmark with observations from >= 3 distinct poses (VERDICT r3
-    missing #1)."""
-    from saccot_tpu.slam.frontend import correspondences_to_ba
+    ONE landmark with observations from >= 3 distinct poses."""
+    from saccot.slam.frontend import correspondences_to_ba
 
     rng = np.random.default_rng(0)
     M = 4
@@ -264,15 +263,15 @@ def test_track_association_merges_covisible_points():
 def test_track_ba_beats_pairwise():
     """On a sequence with heavy cross-edge co-visibility, multi-view track
     BA must yield lower ATE than the pairwise (G=2, no association)
-    degenerate mode (VERDICT r3 next #1 done-criterion)."""
-    from saccot_tpu.io.synthetic import slam_sequence
-    from saccot_tpu.slam.frontend import (
+    degenerate mode."""
+    from saccot.io.synthetic import slam_sequence
+    from saccot.slam.frontend import (
         correspondences_to_ba, registrations_to_graph,
     )
-    from saccot_tpu.engine.sac_cot import register_batch
-    from saccot_tpu.slam.ba import bundle_adjust
-    from saccot_tpu.slam.posegraph import optimize_pose_graph
-    from saccot_tpu.utils.params import SacCotParams
+    from saccot.engine.sac_cot import register_batch
+    from saccot.slam.ba import bundle_adjust
+    from saccot.slam.posegraph import optimize_pose_graph
+    from saccot.utils.params import SacCotParams
 
     seq = slam_sequence(seed=5, n_scans=12, n_corr=256, outlier_ratio=0.4,
                         noise=0.004, loop_every=3, n_world=700)
@@ -306,11 +305,10 @@ def test_track_ba_beats_pairwise():
 
 def test_slam_resume_matches_uninterrupted(tmp_path):
     """Interrupting BA mid-solve and resuming from the checkpoint must
-    reproduce the uninterrupted run's final trajectory and cost (VERDICT r3
-    next #1: wire restore_slam_state into the runners)."""
-    from saccot_tpu.io.synthetic import slam_sequence
-    from saccot_tpu.slam.frontend import run_sequence
-    from saccot_tpu.utils.params import SacCotParams
+    reproduce the uninterrupted run's final trajectory and cost."""
+    from saccot.io.synthetic import slam_sequence
+    from saccot.slam.frontend import run_sequence
+    from saccot.utils.params import SacCotParams
 
     seq = slam_sequence(seed=9, n_scans=6, n_corr=192, outlier_ratio=0.4,
                         noise=0.004, loop_every=3, n_world=700)
@@ -355,8 +353,7 @@ def _plant_false_loop(graph, i, j, rng, weight=200.0):
 
 def test_false_loop_closure_robust_tls():
     """One planted false loop closure (high weight, wrong transform) must
-    leave the robust solve's ATE within 2x of the clean run (VERDICT r2
-    next #7). TLS (the hard-redescending switchable gate) is the loss that
+    leave the robust solve's ATE within 2x of the clean run. TLS (the hard-redescending switchable gate) is the loss that
     achieves it: from the odometry init the wrong edge's whitened residual
     blows past the gate and contributes zero gradient thereafter."""
     rng = np.random.default_rng(7)
@@ -388,11 +385,11 @@ def test_false_loop_closure_robust_tls():
 
 def test_edge_information_from_inlier_statistics():
     """edge_information: SPD, scales with inlier count, shrinks with noise
-    (slam/frontend.py; VERDICT r2 missing #4)."""
-    from saccot_tpu.engine.sac_cot import register_batch
-    from saccot_tpu.io.synthetic import correspondence_problem
-    from saccot_tpu.slam.frontend import edge_information
-    from saccot_tpu.utils.params import SacCotParams
+    (slam/frontend.py)."""
+    from saccot.engine.sac_cot import register_batch
+    from saccot.io.synthetic import correspondence_problem
+    from saccot.slam.frontend import edge_information
+    from saccot.utils.params import SacCotParams
 
     params = SacCotParams(
         compat_tau=0.03, min_separation=0.05, inlier_tau=0.03,
@@ -422,10 +419,10 @@ def test_edge_information_from_inlier_statistics():
 def test_info_graph_converges():
     """Full-information pose graph (registrations_to_graph with points)
     still converges and beats odometry."""
-    from saccot_tpu.io.synthetic import slam_sequence
-    from saccot_tpu.engine.sac_cot import register_batch
-    from saccot_tpu.slam.frontend import registrations_to_graph
-    from saccot_tpu.utils.params import SacCotParams
+    from saccot.io.synthetic import slam_sequence
+    from saccot.engine.sac_cot import register_batch
+    from saccot.slam.frontend import registrations_to_graph
+    from saccot.utils.params import SacCotParams
 
     seq = slam_sequence(seed=13, n_scans=6, n_corr=192, outlier_ratio=0.4,
                         noise=0.003, loop_every=3)
@@ -447,7 +444,7 @@ def test_info_graph_converges():
 
 
 def test_propose_loop_candidates():
-    from saccot_tpu.slam.frontend import propose_loop_candidates
+    from saccot.slam.frontend import propose_loop_candidates
 
     # Square loop returning near the origin.
     M = 9
@@ -463,7 +460,7 @@ def test_propose_loop_candidates():
 
 def test_ba_scales_to_hundreds_of_poses():
     """The matrix-free PCG path must handle M in the hundreds — the regime
-    the dense [6M, 6M] solve could not reach (VERDICT r3 missing #2). No
+    the dense [6M, 6M] solve could not reach. No
     [M, M] structure exists anywhere; this exercises M=128, L=4096."""
     prob, gt_poses, _ = _make_ba_problem(seed=8, M=128, L=4096, G=4,
                                          noise=0.005, init_noise=0.03)
@@ -476,7 +473,7 @@ def test_ba_scales_to_hundreds_of_poses():
 
 def test_adjoint_transport_of_information():
     """se3.adjoint + the H -> Ad(Z)^T H Ad(Z) transport in
-    registrations_to_graph (ADVICE r4): Monte-Carlo over right
+    registrations_to_graph: Monte-Carlo over right
     perturbations of T_est, the empirical covariance of the graph residual
     r = log(Z^{-1} Z_true) must match (Ad(Z)^T H Ad(Z))^{-1}."""
     rng = np.random.default_rng(7)
@@ -512,7 +509,7 @@ def test_adjoint_transport_of_information():
 
 
 def test_pgo_pcg_matches_dense():
-    """Matrix-free PCG pose graph == dense direct solve (VERDICT r4 #4):
+    """Matrix-free PCG pose graph == dense direct solve:
     same LM loop, same trajectory to ~CG tolerance, on a mid-size graph
     with full information matrices and a robust loss."""
     graph, gt = _make_pg_problem(seed=3, M=40)
